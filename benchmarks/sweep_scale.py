@@ -1,7 +1,8 @@
 """Vmapped-sweep throughput: S models in one graph vs S sequential fits.
 
-Small conv-NMF problems leave the MXU mostly idle (a lone reference-scale
-fit keeps ~one systolic column busy), so batching S independent models as
+Small conv-NMF problems leave the device mostly idle (a lone
+reference-scale fit launches kernels far too small to fill it), so
+batching S independent models as
 a vmap axis should cost far less than S times one fit — that headroom is
 the whole point of :func:`tnmf_tpu.models.sweep.sweep_fit`.  This script
 measures both sides on the same shapes:
@@ -75,4 +76,6 @@ def main():
 
 
 if __name__ == '__main__':
+    from tnmf_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -25,7 +25,7 @@ DEMO_NAME_DICT = {
 
 
 def main(demo_name: str = '2-D Synthetic Signals'):
-    st.title('Transform-Invariant NMF (TPU)')
+    st.title('Transform-Invariant NMF (JAX)')
     progress_bar = st.sidebar.progress(1.)
 
     verbose = st.sidebar.checkbox('Verbose', True)

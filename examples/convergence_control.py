@@ -1,10 +1,10 @@
 """Early stopping: the progress-callback protocol vs on-device ``tol``.
 
-TPU-build counterpart of the reference's convergence_control example: the
+JAX counterpart of the reference's convergence_control example: the
 ``(model, iteration) -> bool`` callback inspects the reconstruction energy
 every iteration and aborts the fit once it drops below a threshold.
 
-A second fit shows the TPU-native alternative: ``fit(tol=...)`` runs the
+A second fit shows the on-device alternative: ``fit(tol=...)`` runs the
 convergence check inside one on-device ``lax.while_loop`` — a single
 dispatch for the whole adaptive fit, where the callback protocol pays a
 host round trip per iteration.

@@ -1,7 +1,7 @@
 """Data-parallel conv-NMF over a device mesh — the scale capability the
 reference lacks.
 
-Shards a stack of image samples over all available devices (TPU chips, or
+Shards a stack of image samples over all available devices (GPUs, or
 virtual CPU devices via ``XLA_FLAGS=--xla_force_host_platform_device_count=8``),
 keeps the dictionary replicated and lets XLA all-reduce the W statistics
 over the interconnect.  Prints per-device sharding info and verifies the

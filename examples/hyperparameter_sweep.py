@@ -5,8 +5,8 @@ means many restarts and strength grids.  With the reference library that
 is a Python loop of sequential ``fit`` calls
 (``tnmf/TransformInvariantNMF.py:282``); here the model axis is a
 ``jax.vmap`` batch dimension — S inits, S fit loops and S objectives run
-as one XLA program that keeps the MXU full, and with a mesh the sweep
-shards across chips with zero collectives.
+as one XLA program that keeps the device busy, and with a mesh the sweep
+shards across devices with zero collectives.
 
 The script fits a seed x sparsity grid on synthetic pulse-train patches,
 reports the per-model objectives and the winner, and cross-checks one

@@ -5,8 +5,8 @@ framework adds per-entry masks (``mask=`` on the fit drivers): zeros mark
 *missing* values that neither the gradients nor the energy ever see, and
 general nonnegative floats act as confidence weights.  The multiplicative
 updates stay exact — both gradient halves become correlations of
-mask-weighted streams, one extra fused elementwise multiply per iteration
-on TPU.
+mask-weighted streams, one extra fused elementwise multiply per
+iteration.
 
 The demonstration corrupts an image by deleting 60% of its pixels, learns
 a shift-invariant dictionary from the surviving pixels only, and imputes

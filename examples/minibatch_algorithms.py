@@ -1,6 +1,6 @@
 """Convergence / wall-clock comparison of the five minibatch MU algorithms.
 
-TPU-build counterpart of the reference's minibatch_algorithms example.  The
+JAX counterpart of the reference's minibatch_algorithms example.  The
 reference used an ECG recording (scipy.misc.electrocardiogram, no longer
 downloadable offline); here the sample set is a stack of synthetic
 multi-channel pulse trains with the same structure: many short 1-D samples

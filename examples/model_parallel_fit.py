@@ -7,7 +7,7 @@ axis across the mesh.  Both MU gradients are atom-local, so the only
 collective is the reconstruction's sum over atoms — one all-reduce per
 gradient pass, inserted automatically by the SPMD partitioner.
 
-Run on TPU chips, or on virtual CPU devices via
+Run on GPUs, or on virtual CPU devices via
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu``.
 """
 

@@ -2,7 +2,7 @@
 
 With ``reconstruction_mode='full'`` and ``atom_shape == sample_shape`` the
 shift axis degenerates and the model IS standard NMF (``V ~ H @ W``) — the
-engine lowers every update to MXU matmuls (the ``dot`` strategy, see
+engine lowers every update to matmuls (the ``dot`` strategy, see
 :mod:`tnmf_tpu.ops.dot`).  In that geometry two solvers are available:
 
 * ``solver='mu'`` (default): Lee–Seung multiplicative updates — the

@@ -1,6 +1,6 @@
 """Shift-invariant decomposition of a 2-D block image with lateral inhibition.
 
-TPU-build counterpart of the reference example of the same name: learns a
+JAX counterpart of the reference example of the same name: learns a
 patch dictionary of a synthetic block image in 'circular' reconstruction
 mode with same-atom inhibition, then plots the learned atoms against the
 ground-truth patches and the reconstruction.

@@ -108,7 +108,7 @@ def test_revival_is_reproducible_with_seed():
 
 
 def test_revival_under_mesh_matches_single_device():
-    """Mesh-sharded revival (VERDICT r3 composition hole): revive_every
+    """Mesh-sharded revival: revive_every
     under a data-parallel mesh reproduces the single-device trajectory and
     preserves the factor shardings across the host round-trip, so the
     following fused chunks reuse the compiled sharded program."""

@@ -7,7 +7,7 @@ guarantees exactly one parseable headline JSON line within the
 adaptive timing helpers cap their work by the remaining wall clock.
 
 The subprocess tests use the ``BENCH_SELFTEST`` hook, which exercises the
-watchdog machinery without importing jax or touching a TPU.
+watchdog machinery without importing jax or touching an accelerator.
 """
 
 import json

@@ -24,7 +24,7 @@ BETAS = (0.0, 0.5, 1.0, 1.5, 2.0)
 @pytest.fixture
 def force_phased(monkeypatch):
     from tnmf_tpu import engine
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
 
 
 def _toy(mode, seed=0, n=3, c=2, sample=(12,), atom=(4,)):
@@ -76,7 +76,7 @@ def test_beta_matches_oracle_1d(beta, mode, backend):
 
 @pytest.mark.parametrize('beta', (1.0, 1.5))
 def test_beta_matches_oracle_2d_phased(beta, force_phased):
-    """The phase-decomposed TPU lowering serves every beta unchanged."""
+    """The phase-decomposed lowering serves every beta unchanged."""
     rng = np.random.default_rng(3)
     V = rng.random((2, 1, 12, 12)).astype(np.float64) + 0.05
     Wo, Ho = _oracle_fit(V, n_atoms=2, atom_shape=(3, 3), mode='valid',
@@ -281,11 +281,6 @@ def test_beta_group_fast_path_matches_oracle():
         W = W / np.where(s == 0, 1, s)
     np.testing.assert_allclose(nmf.W, W, rtol=1e-8)
     np.testing.assert_allclose(nmf.H.reshape(H.shape), H, rtol=1e-8)
-
-
-def test_beta_rejects_pallas():
-    with pytest.raises(ValueError, match='beta_loss'):
-        TransformInvariantNMF(2, (3,), beta_loss=1.0, use_pallas=True)
 
 
 def test_is_divergence_zero_data_guard():

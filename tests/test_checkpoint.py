@@ -149,12 +149,12 @@ def test_restore_keeps_phased_gate_under_spatial_mesh(tmp_path, monkeypatch):
     from tnmf_tpu import engine
     from tnmf_tpu.parallel import make_mesh
 
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
     V = np.random.default_rng(5).random((8, 1, 24, 24)).astype(np.float32)
     np.random.seed(42)
     nmf = TransformInvariantNMF(n_atoms=4, atom_shape=(9, 9))
     nmf.fit(V, n_iterations=2, sparsity_H=0.1)
-    assert nmf._strategy == 'phased'  # eligible geometry on the fake TPU
+    assert nmf._strategy == 'phased'  # eligible geometry, phased forced on
     path = str(tmp_path / 'ckpt.npz')
     nmf.save(path, include_H=True)
 

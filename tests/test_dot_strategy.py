@@ -50,8 +50,10 @@ def test_auto_resolves_to_dot_only_for_single_transform():
     assert engine.resolve_strategy('fft', plan1, 4, 1) == 'fft'
     # the gate
     assert engine.resolve_strategy('conv', plan1, 4, 1, allow_dot=False) == 'conv'
-    # choose_strategy routes the degenerate geometry through 'conv'
-    assert engine.choose_strategy(plan1, 4, 1) == 'conv'
+    # choose_strategy routes the degenerate geometry through 'conv', so
+    # 'auto' lowers it to 'dot'
+    assert engine.choose_strategy(plan1) == 'conv'
+    assert engine.resolve_strategy('auto', plan1, 4, 1) == 'dot'
 
 
 def _fit(V, force_conv=False, **kw):

@@ -20,7 +20,7 @@ from tnmf_tpu import TransformInvariantNMF
 @pytest.fixture
 def force_phased(monkeypatch):
     from tnmf_tpu import engine
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
 
 
 def _V(shape=(4, 2, 32, 32), seed=3):

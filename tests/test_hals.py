@@ -342,19 +342,38 @@ def test_hals_bfloat16():
 
 
 def test_hals_auto_inner():
-    # FLOP-ratio fallback when the sample count is unknown
+    # FLOP-ratio rule when the sample count is unknown
     assert engine_hals.auto_inner(4, 30) == 4          # 0.5 * 30 / 4
     assert engine_hals.auto_inner(256, 16384) == 8     # clamped high
     assert engine_hals.auto_inner(64, 64) == 1         # clamped low
-    # time model: at the latency-bound production scale a sweep costs
-    # more wall-clock than a Gram refresh, so every sweep gets fresh
-    # Grams (the FLOP rule would pick 8 here and run ~7x slower/iter)
-    assert engine_hals.auto_inner(256, 4096, n_samples=16384) == 1
-    # Gram-bound regime (huge F, small m): extra sweeps are nearly free
-    assert engine_hals.auto_inner(16, 65536, n_samples=4096) == 8
     assert engine_hals.auto_inner(4, 30, inner=2) == 2
     with pytest.raises(ValueError):
         engine_hals.auto_inner(4, 30, inner=0)
+
+
+def _fake_device(monkeypatch, kind):
+    class Dev:
+        platform, device_kind = 'gpu', kind
+    monkeypatch.setattr(engine_hals.jax, 'devices', lambda *a: [Dev()])
+
+
+def test_hals_auto_inner_device_table(monkeypatch):
+    # a device outside the table (here: this CPU) falls back to the FLOP
+    # rule, which assumes no rate
+    assert engine_hals.auto_inner(256, 4096, n_samples=16384) == 8
+    _fake_device(monkeypatch, 'unlisted')
+    assert engine_hals.auto_inner(256, 4096, n_samples=16384) == 8
+    h100 = 'NVIDIA H100 80GB HBM3'
+    assert h100 in engine_hals.HALS_COSTS
+    _fake_device(monkeypatch, h100)
+    # time model: at the latency-bound production scale a sweep pair costs
+    # far more than a Gram refresh, so every sweep gets fresh Grams (the
+    # FLOP rule would pick 8 here)
+    assert engine_hals.auto_inner(256, 4096, n_samples=16384) == 1
+    # Gram-bound regime (huge F, small m): extra sweeps are bought
+    assert engine_hals.auto_inner(4, 262144, n_samples=65536) == 8
+    # without the sample count the FLOP rule applies on any device
+    assert engine_hals.auto_inner(4, 30) == 4
 
 
 def test_hals_rejections():

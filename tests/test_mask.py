@@ -107,7 +107,7 @@ def test_masked_values_never_leak():
 def test_ones_mask_equals_no_mask(monkeypatch):
     V, _ = _data(seed=12, n=2, c=1, sample=(12, 12))
     for phased_on in (False, True):
-        monkeypatch.setattr(engine, '_phased_platform_ok', lambda: phased_on)
+        monkeypatch.setattr(engine, '_phased_device', lambda: phased_on)
         m1 = TransformInvariantNMF(n_atoms=2, atom_shape=(5, 5), seed=3)
         m1.fit_batch(V, n_iterations=5)
         m2 = TransformInvariantNMF(n_atoms=2, atom_shape=(5, 5), seed=3)

@@ -46,7 +46,7 @@ def test_estimate_matches_live_fit(backend, mode):
 
 def test_estimate_matches_phased(monkeypatch):
     from tnmf_tpu import engine
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
     V = _V(c=1, shape=(16, 16))
     m = TransformInvariantNMF(n_atoms=3, atom_shape=(5, 5), seed=0,
                               dtype='float32')

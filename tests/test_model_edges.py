@@ -23,18 +23,6 @@ def test_invalid_init_raises():
         TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), init='nope')
 
 
-def test_use_pallas_tristate():
-    # auto resolves to the XLA paths (measured winners at every scale);
-    # True forces both Pallas kernels on, False is explicit XLA-only
-    auto = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3))
-    assert auto._use_pallas_mode is None and not auto._use_pallas_gw
-    assert not auto._pallas_mu_enabled(4)
-    on = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), use_pallas=True)
-    assert on._pallas_mu_enabled(70_000) and on._use_pallas_gw
-    off = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), use_pallas=False)
-    assert not off._pallas_mu_enabled(4) and not off._use_pallas_gw
-
-
 def test_callback_interval_with_update_w_only():
     V = _V()
     np.random.seed(1)
@@ -108,32 +96,6 @@ def test_fit_loop_energies_zero_iterations():
         Vp, V, W, H, z, z, z, (), n_iterations=0, plan=plan, strategy='conv')
     assert es.shape == (0,)
     np.testing.assert_allclose(np.asarray(Wn), np.asarray(W))
-
-
-def test_pallas_gw_flag_falls_back_off_tpu():
-    """use_pallas=True requests the grad_W GEMM kernel; on CPU supported()
-    rejects it and the conv path must produce identical results."""
-    V = _V()
-    np.random.seed(3)
-    a = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), backend='jax_conv',
-                              use_pallas=True)
-    a.fit(V, n_iterations=3)
-    np.random.seed(3)
-    b = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), backend='jax_conv',
-                              use_pallas=False)
-    b.fit(V, n_iterations=3)
-    np.testing.assert_allclose(a.W, b.W, rtol=1e-12)
-
-    from tnmf_tpu import MiniBatchAlgorithm
-    np.random.seed(3)
-    c = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), backend='jax_conv',
-                              use_pallas=True)
-    c.fit_minibatches(V, algorithm=MiniBatchAlgorithm.ASG_MU, batch_size=2, n_epochs=2)
-    np.random.seed(3)
-    d = TransformInvariantNMF(n_atoms=2, atom_shape=(3, 3), backend='jax_conv',
-                              use_pallas=False)
-    d.fit_minibatches(V, algorithm=MiniBatchAlgorithm.ASG_MU, batch_size=2, n_epochs=2)
-    np.testing.assert_allclose(c.W, d.W, rtol=1e-12)
 
 
 def test_negative_v_raises_valueerror():

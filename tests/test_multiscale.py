@@ -454,10 +454,10 @@ def test_multiscale_sharded_checkpoint_roundtrip(tmp_path):
 
 @pytest.fixture
 def force_phased(monkeypatch):
-    """Force the TPU-only platform gate on (the compiled program is the
-    same one TPU runs; CPU float64 pins the numerics)."""
+    """Force the phased lowering on (the policy picks it on a GPU; CPU
+    float64 pins the numerics)."""
     from tnmf_tpu import engine
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
 
 
 def _phased_pair(force=True, **fit_kw):

@@ -1,7 +1,7 @@
 """Property tests: the fast JAX strategies must reproduce the NumPy oracle
 bit-for-bit-ish (float64 allclose) for every reconstruction mode and rank.
 
-This is the TPU-build analogue of the reference's cross-backend equivalence
+This is the JAX build's analogue of the reference's cross-backend equivalence
 tests (tnmf/tests/test_backends.py) — the oracle plays the anchor role.
 """
 
@@ -55,87 +55,6 @@ def test_strategy_matches_oracle(mode, case, strategy):
     gw0 = oracle.reconstruction_gradient_W(V, W, H, mode)
     for a, b in zip(gw, gw0):
         np.testing.assert_allclose(np.asarray(a), b, rtol=1e-10, atol=1e-10)
-
-
-@pytest.mark.parametrize('mode', MODES)
-def test_matmul_dft_matches_fft(mode, monkeypatch):
-    """The TPU matmul-DFT transform path (forced on here) must be exact
-    against the oracle: same contract as the jnp.fft path it replaces on
-    TPU, where XLA's FFT lowering is ~25x slower than MXU DFT matmuls."""
-    monkeypatch.setattr(fft, '_use_matmul_dft', lambda plan: True)
-    rng = np.random.default_rng(3)
-    for S, A in [((9, 11), (3, 4)), ((13,), (4,)), ((6, 5, 7), (2, 3, 2))]:
-        if mode in ('full', 'reflect') and any(s < a for s, a in zip(S, A)):
-            continue
-        plan = ConvPlan.create(mode, S, A)
-        N, C, M = 2, 3, 4
-        V = rng.random((N, C) + S)
-        W = rng.random((M, C) + A)
-        H = rng.random((N, M) + plan.transform_shape)
-        Vp = fft.prepare_data(V, plan)
-        R = np.asarray(fft.reconstruct(W, H, plan))
-        np.testing.assert_allclose(R, oracle.reconstruct(W, H, mode), rtol=1e-9, atol=1e-11)
-        for a, b in zip(fft.grad_H_pair(Vp, R, W, plan),
-                        oracle.reconstruction_gradient_H(V, W, H, mode)):
-            np.testing.assert_allclose(np.asarray(a), b, rtol=1e-9, atol=1e-11)
-        for a, b in zip(fft.grad_W_pair(Vp, R, H, plan),
-                        oracle.reconstruction_gradient_W(V, W, H, mode)):
-            np.testing.assert_allclose(np.asarray(a), b, rtol=1e-9, atol=1e-11)
-
-
-def test_matmul_dft_precision_highest(monkeypatch):
-    """plan.precision='highest' upgrades the DFT contractions to
-    Precision.HIGHEST (full-precision multiplies); every other setting is
-    floored at HIGH because the spectral roundtrip amplifies bf16 error
-    (fft.py:_dft_precision, round-2 advisor finding)."""
-    monkeypatch.setattr(fft, '_use_matmul_dft', lambda plan: True)
-    rng = np.random.default_rng(5)
-    S, A = (9, 11), (3, 4)
-    plan = ConvPlan.create('valid', S, A, precision='highest')
-    V = rng.random((2, 1) + S)
-    W = rng.random((2, 1) + A)
-    H = rng.random((2, 2) + plan.transform_shape)
-    Vp = fft.prepare_data(V, plan)
-    R = np.asarray(fft.reconstruct(W, H, plan))
-    np.testing.assert_allclose(R, oracle.reconstruct(W, H, 'valid'),
-                               rtol=1e-9, atol=1e-11)
-    for a, b in zip(fft.grad_H_pair(Vp, R, W, plan),
-                    oracle.reconstruction_gradient_H(V, W, H, 'valid')):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-9, atol=1e-11)
-
-
-@pytest.mark.parametrize('mode', ['valid', 'circular'])
-def test_two_stage_dft_long_axis(mode, monkeypatch):
-    """Axes beyond _DFT_MAX_LEN run as a two-stage Cooley-Tukey matmul-DFT
-    (fft.py:_full_dft_axis) instead of falling back to XLA's slow TPU FFT —
-    the round-2 >4096 cliff.  Forced on here and pinned to the oracle at a
-    >4096 length."""
-    monkeypatch.setattr(fft, '_use_matmul_dft', lambda plan: True)
-    rng = np.random.default_rng(11)
-    S, A = (5000,), (4,)
-    plan = ConvPlan.create(mode, S, A)
-    assert max(plan.fft_shape) > fft._DFT_MAX_LEN
-    assert all(fft._split_len(L) is not None for L in plan.fft_shape)
-    N, C, M = 2, 2, 3
-    V = rng.random((N, C) + S)
-    W = rng.random((M, C) + A)
-    H = rng.random((N, M) + plan.transform_shape)
-    Vp = fft.prepare_data(V, plan)
-    R = np.asarray(fft.reconstruct(W, H, plan))
-    np.testing.assert_allclose(R, oracle.reconstruct(W, H, mode), rtol=1e-9, atol=1e-9)
-    for a, b in zip(fft.grad_H_pair(Vp, R, W, plan),
-                    oracle.reconstruction_gradient_H(V, W, H, mode)):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-9, atol=1e-9)
-    for a, b in zip(fft.grad_W_pair(Vp, R, H, plan),
-                    oracle.reconstruction_gradient_W(V, W, H, mode)):
-        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-9, atol=1e-9)
-
-
-def test_split_len():
-    assert fft._split_len(4096) == (4096, 1)
-    L1, L2 = fft._split_len(10125)
-    assert L1 * L2 == 10125 and max(L1, L2) <= fft._DFT_MAX_LEN
-    assert fft._split_len(5003) is None  # prime > 4096: no MXU split exists
 
 
 def test_rank4_fit_smoke():

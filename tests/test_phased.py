@@ -1,12 +1,13 @@
 """The phase-decomposed conv lowering (tnmf_tpu.ops.phased).
 
-On TPU the engine silently upgrades the 'conv' strategy to the phased
-lowering for channel-poor problems of rank 1-3 in every reconstruction
-mode (engine.resolve_strategy); these tests force the platform gate on
-and pin the phased operators to the oracle and the phased end-to-end
-trajectories to the plain conv strategy, on CPU in float64 — the compiled
-program is the same one TPU runs.
+On a GPU the engine upgrades the 'conv' strategy to the phased lowering
+for channel-poor problems of rank 1-3 in every reconstruction mode
+(engine.resolve_strategy); these tests force the device half of that
+policy on and pin the phased operators to the oracle and the phased
+end-to-end trajectories to the plain conv strategy, on CPU in float64.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -132,7 +133,7 @@ def test_rec_block_channel_adaptive():
 def test_resolve_strategy_platform_gate(monkeypatch):
     plan = ConvPlan.create('valid', (24, 24), (9, 9))
     assert engine.resolve_strategy('conv', plan, 16, 1) == 'conv'  # CPU: off
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
     assert engine.resolve_strategy('conv', plan, 16, 1) == 'phased'
     assert engine.resolve_strategy('fft', plan, 16, 1) == 'fft'
     assert engine.resolve_strategy('conv', plan, 16, 1, allow_phased=False) == 'conv'
@@ -140,7 +141,7 @@ def test_resolve_strategy_platform_gate(monkeypatch):
 
 @pytest.fixture
 def force_phased(monkeypatch):
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
 
 
 def _fit_pair(fit_kwargs, backend_pair=('jax_conv', 'jax_conv'), V=None,
@@ -154,10 +155,9 @@ def _fit_pair(fit_kwargs, backend_pair=('jax_conv', 'jax_conv'), V=None,
         np.random.seed(42)
         nmf = TransformInvariantNMF(n_atoms=n_atoms, atom_shape=atom_shape,
                                     backend=backend, **dict(ctor))
-        if not allow:
-            nmf._use_pallas_mode = True  # disables the phased upgrade
-            nmf._use_pallas_gw = False
-        nmf.fit(V, **fit_kwargs)
+        # the lowering policy decides at fit time: off for the plain run
+        with mock.patch.object(engine, '_phased_device', lambda: allow):
+            nmf.fit(V, **fit_kwargs)
         out.append(nmf)
     return out
 
@@ -200,10 +200,7 @@ def test_phased_fit_matches_conv_modes(force_phased, mode):
 
 def test_minibatch_upgrades_to_phased(force_phased):
     """Policy: minibatch fitting upgrades to the phased lowering like
-    fit_batch (re-measured on v5e with host-materialization sync: ASG_MU
-    epochs 2.7x faster at the 144x32x32/bs=12 fixture scale, ~10x at the
-    64x256x256 flagship scale; an earlier '8x slower' figure predated the
-    channels-last carry and a dispatch-sync artifact)."""
+    fit_batch."""
     from tnmf_tpu import MiniBatchAlgorithm, TransformInvariantNMF
     V = np.random.default_rng(5).random((6, 1, 16, 14))
     np.random.seed(42)
@@ -350,7 +347,7 @@ def test_phased_tol_fit_matches_conv(force_phased):
 
 
 def test_phased_spatial_mesh_replicates():
-    """Measured justification of the spatial-mesh gate (VERDICT r3 #7): the
+    """Measured justification of the spatial-mesh gate: the
     phased update step under a spatially sharded layout compiles and is
     numerically correct, but GSPMD cannot propagate the sharding through
     the phase encode (pad + space-to-depth reshape + channels-last

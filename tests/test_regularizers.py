@@ -11,7 +11,7 @@ sparsity plus lateral inhibition on H only
   multiplicatively shrinking entries where *other* atoms carry mass.
 
 Pinned here: trajectories against a NumPy oracle MU driver across modes
-and strategies (incl. the phased TPU lowering), bitwise no-op at zero
+and strategies (incl. the phased lowering), bitwise no-op at zero
 strength, the defining behavioral effects, and composition with the
 minibatch scan/loop drivers and partial_fit.
 """
@@ -26,7 +26,7 @@ from tnmf_tpu.ops import oracle
 @pytest.fixture
 def force_phased(monkeypatch):
     from tnmf_tpu import engine
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
 
 
 def _toy(seed=0, n=3, c=2, sample=(12,)):
@@ -75,7 +75,7 @@ def test_matches_oracle_1d(l2, ortho, mode, backend):
 
 
 def test_matches_oracle_2d_phased(force_phased):
-    """The phase-decomposed TPU lowering carries both terms unchanged
+    """The phase-decomposed lowering carries both terms unchanged
     (l2 is elementwise in the phased layout; ortho acts on canonical W)."""
     rng = np.random.default_rng(3)
     V = rng.random((2, 1, 12, 10)) + 0.05

@@ -294,16 +294,12 @@ def test_2d_mesh_data_x_atoms():
 
 
 @needs_8_devices
-def test_2d_mesh_data_x_atoms_fft_strategy(monkeypatch):
-    """'samples+atoms' x fft strategy — the TPU program.  On TPU the fft
-    strategy lowers to matmul-DFT contractions (no FFT HLO at all), which is
-    exactly what is forced on here, so the partitioned program this verifies
-    on the virtual mesh is the one a real TPU mesh runs.  (The CPU-only
-    jnp.fft route is the one whose fft thunk RET_CHECKs under this mesh —
-    a platform limitation that TPU execution never hits.)"""
-    from tnmf_tpu.ops import fft as fft_ops
+def test_2d_mesh_data_x_atoms_fft_strategy():
+    """'samples+atoms' x fft strategy on jnp.fft: the partitioned program
+    must match the single-device fit (ops/fft._leading_flat keeps the
+    FFT operands row-major, which XLA:CPU's FFT requires under this
+    mesh)."""
     from tnmf_tpu.parallel import ATOM_AXIS, make_mesh_2d_atoms
-    monkeypatch.setattr(fft_ops, '_use_matmul_dft', lambda plan: True)
     V = _make_V()
 
     np.random.seed(42)

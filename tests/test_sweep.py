@@ -34,9 +34,7 @@ def _fit_one_by_hand(V, key, n_atoms, atom_shape, n_iter, sp, inh, cross,
     """One model through the engine directly — the sweep's ground truth."""
     plan = ConvPlan.create(mode, V.shape[2:], atom_shape)
     if strategy is None:
-        strategy = engine.resolve_strategy(
-            engine.choose_strategy(plan, n_atoms, V.shape[1]),
-            plan, n_atoms, V.shape[1])
+        strategy = engine.resolve_strategy('auto', plan, n_atoms, V.shape[1])
     kernels = tuple(jnp.asarray(k, dtype=V.dtype) for k in inhibition_kernels(
         resolve_inhibition_range(None, atom_shape)))
     Vd = jnp.asarray(V)
@@ -116,7 +114,7 @@ def test_sweep_mesh_parity_and_layout():
 
 
 def test_sweep_phased_strategy_matches_individual(monkeypatch):
-    monkeypatch.setattr(engine, '_phased_platform_ok', lambda: True)
+    monkeypatch.setattr(engine, '_phased_device', lambda: True)
     V = _make_V()
     res = sweep_fit(V, 2, (3, 3), n_models=2, seed=4, n_iterations=4,
                     strategy='conv', sparsity=0.1)
@@ -143,9 +141,7 @@ def test_sweep_transform_group_matches_individual():
     group = make_group('shift+flip', (3, 3))
     assert res.H.shape[2] == 2 * group.size  # m-major tied maps
     plan = ConvPlan.create('valid', V.shape[2:], (3, 3))
-    base = engine.resolve_strategy(
-        engine.choose_strategy(plan, 2 * group.size, 1),
-        plan, 2 * group.size, 1)
+    base = engine.resolve_strategy('auto', plan, 2 * group.size, 1)
     keys = jax.random.split(jax.random.PRNGKey(6), 2)
     for s in range(2):
         Vd = jnp.asarray(V)
@@ -215,8 +211,7 @@ def test_sweep_tol_matches_fit_loop_tol_per_model():
     assert res.n_iters is not None and res.n_iters.shape == (2,)
     keys = jax.random.split(jax.random.PRNGKey(13), 2)
     plan = ConvPlan.create('valid', V.shape[2:], (3, 3))
-    strategy = engine.resolve_strategy(
-        engine.choose_strategy(plan, 3, 1), plan, 3, 1)
+    strategy = engine.resolve_strategy('auto', plan, 3, 1)
     kernels = tuple(jnp.asarray(k, dtype=V.dtype) for k in inhibition_kernels(
         resolve_inhibition_range(None, (3, 3))))
     Vd = jnp.asarray(V)

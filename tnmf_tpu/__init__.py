@@ -1,9 +1,9 @@
-"""tnmf_tpu — TPU-native Transform-Invariant Non-Negative Matrix Factorization.
+"""tnmf_tpu — Transform-Invariant Non-Negative Matrix Factorization in JAX.
 
 A from-scratch JAX/XLA rebuild of the capabilities of the ``tnmf`` package
-(shift-invariant NMF via multiplicative updates), designed TPU-first:
+(shift-invariant NMF via multiplicative updates), run on a GPU:
 
-* one jit-compiled engine with FFT and MXU direct-convolution strategies in
+* one jit-compiled engine with FFT and direct-convolution strategies in
   place of five interchangeable CPU backends,
 * fused on-device fit loops,
 * optional data parallelism over a ``jax.sharding.Mesh``.

@@ -85,7 +85,7 @@ def cmd_bench(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog='tnmf-tpu',
-        description='TPU-native transform-invariant NMF: demos, examples, benchmarks.')
+        description='Transform-invariant NMF in JAX: demos, examples, benchmarks.')
     sub = parser.add_subparsers(dest='command', required=True)
 
     p_demo = sub.add_parser('demo', help='launch the interactive demo dashboard')
@@ -120,6 +120,11 @@ def main(argv=None) -> int:
     p_bench.set_defaults(func=cmd_bench)
 
     args = parser.parse_args(argv)
+    # the parent never touches a device itself (only ``export`` computes,
+    # in-process); the exported variable gives the spawned example, demo
+    # and bench processes the same cache
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     return args.func(args)
 
 

@@ -23,16 +23,15 @@ fast HALS; cross-checked trajectory-exact against sklearn in
 Glineur 2012: the Gram/cross matrices ``(G, P)`` / ``(A, B)`` are exact
 regardless of the *other* factor's last update, so each one — the only
 quantities that touch the ``(n, F)`` data — can be reused for several
-inner component sweeps.  On TPU that split is the whole design: the Grams
-are large MXU matmuls (the ``O(n m F)`` work), while a component sweep is
-``m`` small matvecs (``O(n m^2)`` / ``O(m^2 F)``) run as one
-``lax.fori_loop`` of dynamic-slice updates.  Crucially the sweep's *time*
-is not its FLOPs: the factor tile stays VMEM-resident across the loop, so
-each chain step costs a ~3.5 us latency floor regardless of operand size
-— :func:`auto_inner` therefore prices Gram refresh vs sweep in seconds,
+inner component sweeps.  On an accelerator that split is the whole
+design: the Grams are large matmuls (the ``O(n m F)`` work), while a
+component sweep is ``m`` small matvecs (``O(n m^2)`` / ``O(m^2 F)``) run
+as one ``lax.fori_loop`` of dynamic-slice updates.  Crucially the sweep's
+*time* is not its FLOPs: each chain step costs a latency floor (1.4e-5 s
+on an H100, :data:`HALS_COSTS`) regardless of operand size —
+:func:`auto_inner` therefore prices Gram refresh vs sweep in seconds,
 buying extra (staler) inner sweeps only in the Gram-bound huge-``F``
-regime; at 16384x4096/256 on v5e that choice is 2.1 ms/outer-iteration
-vs 15.5 ms for the naive FLOP-ratio rule.
+regime.
 
 Why offer HALS at all: per outer iteration it decreases the Frobenius
 objective at least as much as one exact coordinate pass can (each
@@ -42,7 +41,7 @@ and — unlike MU — **zero is not absorbing** (a zeroed component re-enters
 whenever its partial residual correlation turns positive, so dead-atom
 revival is unnecessary by construction).
 
-TPU numerics: all contractions accumulate in float32
+Numerics: all contractions accumulate in float32
 (``preferred_element_type``) under bfloat16 storage and honor
 ``plan.lax_precision``; the component loops carry the factors in their
 storage dtype.  Data parallelism: the Grams are per-sample sums, so under
@@ -74,12 +73,12 @@ _TINY = jnp.finfo(jnp.float32).tiny
 
 def _acc_dtype(*xs):
     """Accumulation dtype: at least float32 (bfloat16 storage accumulates
-    in float32 on the MXU; float64 test runs keep float64)."""
+    in float32; float64 test runs keep float64)."""
     return jnp.promote_types(jnp.result_type(*xs), jnp.float32)
 
 
 def _dot(a, b, precision):
-    """MXU matmul accumulating in at least float32."""
+    """Matmul accumulating in at least float32."""
     return jnp.matmul(a, b, precision=precision,
                       preferred_element_type=_acc_dtype(a, b))
 
@@ -90,7 +89,7 @@ def _dot(a, b, precision):
 _BLOCK = 8
 
 #: unroll factor of the sweep fori_loops: the chain step is latency-bound
-#: (a ~16 MB VMEM-resident matvec behind ~µs of loop/slice overhead), so
+#: (a small matvec behind microseconds of loop/slice overhead), so
 #: unrolling amortizes the while-loop trip cost without changing the math
 _UNROLL = 8
 
@@ -129,21 +128,17 @@ def _sweep_H_blocked(H, G, P, l1, l2, n_sweeps: int, block: int = _BLOCK):
     ``tests/test_hals.py::test_hals_blocked_sweeps_equal_plain``), but the
     sequential chain step touches only the current ``(n, block)`` tile:
     the running product ``C = H @ G`` carries all cross-block coupling
-    and is refreshed once per block with one MXU matmul
+    and is refreshed once per block with one matmul
     (``C += (H_B - H0_B) @ G[B, :]``) — the delayed-update trick of
     blocked Cholesky applied to coordinate descent.  Per pass that is
-    ``m`` latency-bound steps of O(n*block) + ``m/block`` MXU matmuls of
+    ``m`` latency-bound steps of O(n*block) + ``m/block`` matmuls of
     O(n*block*m), instead of ``m`` steps of O(n*m).  Requires
     ``block | m``.
 
-    **Measured negative — kept for the record, not routed.**  On v5e at
-    the 16384x4096/256 production scale the plain sweep runs ~1.0 ms (the
-    full H tile is VMEM-resident, so its per-step matvec is already
-    ~free and the cost is ~3.5 us/step of loop latency), while this
-    version pays the same ``m`` chain steps *plus* rewriting the (n, m)
-    running product per block: marginal cost per extra sweep measured
-    2.2x the plain sweep at block=8, parity only at block=32.  The
-    winning lever for the latency-bound regime is instead loop unrolling
+    **Not routed.**  It pays the same ``m`` latency-bound chain steps as
+    the plain sweep *plus* rewriting the (n, m) running product per block,
+    so it cannot shorten a latency-bound sweep; its time on a GPU is not
+    measured.  The levers for that regime are loop unrolling
     (``_UNROLL``) and a time-based ``auto_inner`` (fresh Grams beat extra
     sweeps once the sweep dominates wall-clock).
     """
@@ -203,8 +198,7 @@ def _sweep_W(W, A, B, l1, l2):
     ``l1``/``l2`` regularize the dictionary (sklearn's ``alpha_H`` side —
     the frozen-factor Gram absorbs L2 into the curvature, L1 shifts the
     correlation, exactly like the H sweep).  Row updates are contiguous
-    sublane slices (W is carried components-major so the dynamic updates
-    never straddle lanes).
+    slices (W is carried components-major).
     """
     m = W.shape[0]
 
@@ -455,14 +449,17 @@ def fit_loop_tol(V, W, H, n_max, tol, l1, l2, l1w, l2w, *, check_every: int,
     return W2.reshape(W.shape), H2.reshape(H.shape), n_done, e, trace
 
 
-#: crude accelerator cost model behind ``auto_inner`` (v5e-calibrated):
-#: effective f32 matmul throughput, HBM bandwidth, and the measured
-#: latency floor of one Gauss–Seidel chain step (fori_loop trip + dynamic
-#: slices + a VMEM-resident matvec — ~3.5 us at 16384x256, largely
-#: independent of the operand size)
-_MXU_FLOPS = 8e13
-_HBM_BPS = 6e11
-_STEP_SECONDS = 3e-6
+#: cost model behind ``auto_inner``, by ``device_kind``: achieved float32
+#: matmul rate at the default precision (FLOP/s), achieved device-memory
+#: bandwidth (bytes/s) and the latency of one Gauss–Seidel chain step (s).
+#: Measured with ``benchmarks/lowering.py`` (hals section) on an NVIDIA H100
+#: 80GB HBM3 at a 400 W power limit: an 8192^3 TF32 matmul ran 2.82e14
+#: FLOP/s, a 1 GiB elementwise copy 2.16e12 B/s, and one extra inner sweep
+#: pair at 16384x4096/256 cost 7.1 ms, i.e. 1.39e-5 s per chain step.
+#: A device not listed here gets the FLOP-ratio rule, which assumes no rate.
+HALS_COSTS = {
+    'NVIDIA H100 80GB HBM3': (2.8e14, 2.2e12, 1.4e-5),
+}
 
 
 def auto_inner(n_components: int, n_features: int,
@@ -472,18 +469,16 @@ def auto_inner(n_components: int, n_features: int,
 
     ``'auto'`` follows the accelerated-HALS principle of Gillis & Glineur
     2012 — reuse each Gram pair for extra component sweeps while those
-    sweeps are nearly free next to the data-touching matmuls — but costs
-    the two sides in *time*, not FLOPs, because on TPU the sweep is
-    latency-bound (``m`` sequential chain steps of ~``_STEP_SECONDS``
-    each, the matvec itself being VMEM-resident and ~free) while the
-    Grams are MXU/HBM-bound.  Measured at the 16384x4096/256 production
-    scale the FLOP-ratio rule (``F/m = 16`` -> 8 sweeps) chose a 15.5
-    ms iteration where the time rule's ``inner=1`` iteration runs 2.2 ms
-    with *more* objective decrease per second (every sweep sees fresh
-    Grams).  ``inner = clamp(round(0.5 + t_gram / (2 t_sweep)), 1, 8)``:
-    extra (staler) sweeps are bought only when a Gram refresh costs more
-    than the sweeps it would improve — the huge-``F``, small-``m``
-    regime.  Without ``n_samples`` the FLOP-ratio fallback is used.
+    sweeps are nearly free next to the data-touching matmuls.  When the
+    first JAX device's ``device_kind`` is in :data:`HALS_COSTS` the two sides are priced in *time*, not FLOPs, because a sweep is
+    latency-bound (``m`` sequential chain steps, each a loop trip, dynamic
+    slices and a small matvec) while the Grams are matmul/bandwidth-bound:
+    ``inner = clamp(round(0.5 + t_gram / (2 t_sweep)), 1, 8)`` buys extra
+    (staler) sweeps only when a Gram refresh costs more than the sweeps it
+    would improve — the huge-``F``, small-``m`` regime.  At 16384x4096/256
+    on the H100 that gives ``inner=1`` (a sweep pair costs 7.1 ms, the
+    Grams 0.25 ms).  Without ``n_samples``, or on any other device, the
+    FLOP-ratio rule ``clamp(round(0.5 F / m), 1, 8)`` is used.
     """
     if inner != 'auto' and inner is not None:
         iv = int(inner)
@@ -491,14 +486,15 @@ def auto_inner(n_components: int, n_features: int,
             raise ValueError('hals_inner must be >= 1 or "auto"')
         return iv
     m, F = max(n_components, 1), n_features
-    if not n_samples:
+    costs = HALS_COSTS.get(jax.devices()[0].device_kind)
+    if not n_samples or costs is None:
         return max(1, min(8, round(0.5 * F / m)))
+    flops, bps, step = costs
     n = n_samples
     # per factor update: the V-touching cross matmul + the small Gram,
-    # plus one V read from HBM; vs m latency-bound chain steps
-    t_gram = (2 * n * m * F + 2 * m * m * F) / _MXU_FLOPS \
-        + 4 * n * F / _HBM_BPS
-    t_sweep = m * _STEP_SECONDS + 2 * n * m * m / _MXU_FLOPS
+    # plus one V read from device memory; vs m latency-bound chain steps
+    t_gram = (2 * n * m * F + 2 * m * m * F) / flops + 4 * n * F / bps
+    t_sweep = m * step + 2 * n * m * m / flops
     return max(1, min(8, round(0.5 + t_gram / (2 * t_sweep))))
 
 

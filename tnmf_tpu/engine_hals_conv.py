@@ -11,7 +11,8 @@ atom footprint lies fully inside the sample — the classic conv-NMF /
 sparse-coding formulation).  The reference library has no coordinate
 solver of any kind (Lee–Seung MU only, ``TransformInvariantNMF.py:136-179``).
 
-**The phase decomposition is what makes exact CD tractable on TPU.**
+**The phase decomposition is what makes exact CD tractable on an
+accelerator.**
 A naive exact coordinate sweep is ``prod(T)`` *sequential* scalar updates
 (every activation overlaps its neighbours), which no accelerator can run.
 But activations of the *same phase* — positions spaced exactly ``A`` apart
@@ -48,9 +49,9 @@ monotone — an exact CD block step and a majorization step both decrease
 the objective — at gradient cost.  The W step does **not** sum-normalize
 (HALS convention, like sklearn; matches :mod:`tnmf_tpu.engine_hals`).
 
-Layout notes (TPU — these ARE the design): the loop-carried tensors must
-keep TPU-friendly minor dimensions, because anything reshaped per phase
-at a traced offset relayouts in full.  H is carried **phase-major**,
+Layout notes (these ARE the design): the loop-carried tensors keep
+large minor dimensions, because anything reshaped per phase at a traced
+offset relayouts in full.  H is carried **phase-major**,
 ``(P, n, M, K)`` with the per-phase position count ``K`` flattened minor
 (P = prod(A)): extracting phase ``p`` is one ``dynamic_index`` on the
 major axis.  The residual stays **canonical** ``(n, C, *spatial)``; the
@@ -58,10 +59,9 @@ phase-p patch correlations are one *strided* convolution
 (``window_strides = A``) of a traced-offset spatial slice, and the
 scatter-back of the updated phase is one transposed convolution
 (``lhs_dilation = A`` — non-overlapping placement, no accumulation
-conflicts).  A first draft that reshaped ``(.., K1, A1, .., Kd, Ad)``
-views per phase measured 275x slower than MU per iteration: the
-``A``-sized minor axes tile-pad 8-16x on TPU and every phase paid a full
-relayout of H and E.  Transform axes are zero-padded up to multiples of
+conflicts).  Reshaping ``(.., K1, A1, .., Kd, Ad)`` views per phase
+instead would leave ``A``-sized minor axes and make every phase pay a
+full relayout of H and E.  Transform axes are zero-padded up to multiples of
 ``A`` so every phase has the same static patch count; padded positions
 would otherwise capture real residual (their patches overhang the valid
 region) and are masked back to zero after each sweep.
@@ -70,14 +70,9 @@ Energy bookkeeping is free: the loop carries ``E`` itself, so the
 objective ``0.5 * ||E||^2`` needs no reconstruction (the MU engine pays
 one reconstruction per recorded energy, ``engine.fit_loop_energies``).
 
-**Measured verdict (v5e, benchmarks/hals_conv.py, 16x128x128 / 16 atoms
-8x8, 5%-dense planted data, tol=1e-5 from the same seeded start):**
-6.7 ms/iter vs plain MU's 1.8 and extrapolated MU's 2.2 (the P*M ~ 1000
-sequential chain steps per sweep are latency-bound by construction; the
-phase fori_loop runs unroll=2, worth ~20%).  Exact CD converges to
-E=122 in 110 iterations where plain MU stalls at E=538 after 440;
-extrapolated MU reaches the same basin (E=121.6) in 180 iterations and
-wins wall-clock 1.7x (0.43 s vs 0.74 s).
+The P*M sequential chain steps per sweep (about 1000 at 16 atoms 8x8)
+are latency-bound by construction; ``benchmarks/hals_conv.py`` races
+this solver against plain and extrapolated MU to a tolerance.
 Recommendation: ``extrapolate=True`` for speed; ``solver='hals'`` when
 exactness/guaranteed monotone descent per block matters or MU stalls.
 """
@@ -222,8 +217,7 @@ def h_phase_sweep(E_pad, H_pm, W, G, l1, l2, *, plan: ConvPlan, inner: int):
 
     # unroll=2 overlaps consecutive phases' slicing/addressing work
     # (the phases stay sequentially dependent through E — unrolling is
-    # semantically identity): measured 8.5 -> 6.8 ms/iter at the
-    # 16x128x128/16x8x8 race config on v5e; unroll=4 plateaus (6.8)
+    # semantically identity)
     return jax.lax.fori_loop(0, math.prod(A), body, (E_pad, H_pm),
                              unroll=2)
 
@@ -245,8 +239,8 @@ def _encode(V, W, H, plan):
     E_pad = _pad_to(E, tuple(t + a - 1 for t, a in zip(Tp, A)), d)
     Hr = _pad_to(H, Tp, d).reshape(
         (n, M) + tuple(x for ka in zip(K, A) for x in ka))
-    # phase-major carry (P, n, M, prod(K)): position count minor (TPU
-    # tile-friendly), phase index major (cheap dynamic_index per phase)
+    # phase-major carry (P, n, M, prod(K)): position count minor (large
+    # minor axis), phase index major (cheap dynamic_index per phase)
     perm = tuple(3 + 2 * i for i in range(d)) + (0, 1) \
         + tuple(2 + 2 * i for i in range(d))
     return E_pad, jnp.transpose(Hr, perm).reshape(

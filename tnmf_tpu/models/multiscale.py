@@ -23,7 +23,7 @@ All scales update simultaneously from the same R (a Jacobi/block update —
 exactly how single-scale MU updates all H entries at once), then R is
 recomputed for the W half, mirroring the reference's H-then-W ordering.
 
-Execution (TPU): per scale this reuses the engine's strategy operators
+Execution: per scale this reuses the engine's strategy operators
 unchanged — each scale gets its own :class:`ConvPlan` (its own padding /
 FFT geometry) and its own prepared data tensor, and the whole iteration is
 one jitted graph over the (W_1..W_K, H_1..H_K) pytree, run as a fused
@@ -399,9 +399,8 @@ class MultiScaleTNMF:
             for a in self.atom_shapes)
         if self._backend in ('auto', 'jax'):
             strategies = tuple(
-                engine.resolve_strategy(
-                    engine.choose_strategy(p, m, V.shape[1]), p, m,
-                    V.shape[1], allow_dot=False)
+                engine.resolve_strategy('auto', p, m, V.shape[1],
+                                        allow_dot=False)
                 for p, m in zip(self._plans, self.n_atoms))
         else:
             from .tnmf import _BACKEND_STRATEGY
@@ -894,9 +893,8 @@ class MultiScaleTNMF:
             for a in self.atom_shapes)
         n_channels = int(self._Ws[0].shape[1])
         self._strategies = tuple(
-            engine.resolve_strategy(
-                engine.choose_strategy(p, m, n_channels), p, m,
-                n_channels, allow_dot=False)
+            engine.resolve_strategy('auto', p, m, n_channels,
+                                    allow_dot=False)
             for p, m in zip(self._plans, self.n_atoms))
 
     def save_sharded(self, path: str, include_H: bool = True,

@@ -6,12 +6,12 @@ regularization strengths, so practitioners routinely fit the same data
 many times (restarts over seeds, grids over sparsity / inhibition) and
 keep the best model.  The reference library can only run such sweeps as a
 Python loop of full fits (one ``TransformInvariantNMF.fit`` per setting,
-``tnmf/TransformInvariantNMF.py:282``).  On TPU the natural formulation is
+``tnmf/TransformInvariantNMF.py:282``).  On an accelerator the natural formulation is
 ``jax.vmap``: the model axis becomes a leading batch dimension of W and H,
 the data tensor (and its loop-invariant preparation) is shared by
 broadcast, and the whole sweep — S inits, S fit loops, S final energies —
 is a single XLA program in which every convolution carries ``S`` times the
-batch, filling the MXU that a lone small problem leaves idle.
+batch, filling a device that a lone small problem leaves idle.
 
 Regularization strengths are *traced* scalars in the engine
 (:func:`tnmf_tpu.engine.fit_loop`), so a sweep over sparsity /
@@ -88,7 +88,7 @@ def _sweep_impl(Vp, V, keys, sparsity, inhibition, cross_inhibition,
                 kernels, mask, l2=None, ortho=None, *, n_iterations,
                 n_atoms, n_maps, plan,
                 strategy, update_H, update_W, use_inhibition, use_cross,
-                use_pallas, use_pallas_gw, beta):
+                beta):
     """Init + fit + final energy for all models as one program.
 
     ``keys`` is (S, 2) PRNG keys; W/H gain a leading model axis inside
@@ -112,8 +112,7 @@ def _sweep_impl(Vp, V, keys, sparsity, inhibition, cross_inhibition,
             l2_H=l2v, ortho_W=orv,
             plan=plan, strategy=strategy, update_H=update_H,
             update_W=update_W, use_inhibition=use_inhibition,
-            use_cross=use_cross, use_pallas=use_pallas,
-            use_pallas_gw=use_pallas_gw, beta=beta)
+            use_cross=use_cross, beta=beta)
 
     if l2 is None:
         W, H = jax.vmap(fit_one)(W0, H0, sparsity, inhibition,
@@ -136,7 +135,7 @@ def _sweep_impl_traced(Vp, V, keys, sparsity, inhibition, cross_inhibition,
                        kernels, mask, l2=None, ortho=None, *,
                        n_iterations, n_atoms, n_maps,
                        plan, strategy, update_H, update_W, use_inhibition,
-                       use_cross, use_pallas, use_pallas_gw, beta):
+                       use_cross, beta):
     """Like :func:`_sweep_impl` but records the objective after every
     iteration via a ``lax.scan`` over update steps (one extra
     reconstruction per iteration — the same cost the reference pays for
@@ -158,8 +157,7 @@ def _sweep_impl_traced(Vp, V, keys, sparsity, inhibition, cross_inhibition,
                 Vp, W, H, sp, inh, cross, kernels, mask, l2v, orv,
                 plan=plan, strategy=strategy, update_H=update_H,
                 update_W=update_W, use_inhibition=use_inhibition,
-                use_cross=use_cross, use_pallas=use_pallas,
-                use_pallas_gw=use_pallas_gw, beta=beta)
+                use_cross=use_cross, beta=beta)
             e = engine.energy(V, W, H, mask, plan=plan, strategy=strategy,
                               beta=beta)
             return (W, H), e
@@ -181,8 +179,7 @@ def _sweep_impl_tol(Vp, V, keys, sparsity, inhibition, cross_inhibition,
                     kernels, mask, n_max, tol, l2=None, ortho=None, *,
                     n_atoms, n_maps,
                     check_every, plan, strategy, update_H, update_W,
-                    use_inhibition, use_cross, use_pallas, use_pallas_gw,
-                    beta):
+                    use_inhibition, use_cross, beta):
     """Like :func:`_sweep_impl` but with per-model convergence detection
     (the single-model semantics of :func:`tnmf_tpu.engine.fit_loop_tol`):
     every ``check_every`` iterations each model's relative energy
@@ -207,8 +204,7 @@ def _sweep_impl_tol(Vp, V, keys, sparsity, inhibition, cross_inhibition,
             Vp, W, H, sp, inh, cross, kernels, mask, l2v, orv,
             plan=plan, strategy=strategy, update_H=update_H,
             update_W=update_W, use_inhibition=use_inhibition,
-            use_cross=use_cross, use_pallas=use_pallas,
-            use_pallas_gw=use_pallas_gw, beta=beta)
+            use_cross=use_cross, beta=beta)
 
     def energy_one(W, H):
         return engine.energy(V, W, H, mask, plan=plan, strategy=strategy,
@@ -541,8 +537,6 @@ def sweep_fit(
             return SweepResult(W=W, H=H, energies=E[:, -1], seeds=seeds,
                                energy_traces=E)
         return SweepResult(W=W, H=H, energies=E, seeds=seeds)
-    if strategy == 'auto':
-        strategy = engine.choose_strategy(plan, n_maps, V.shape[1])
     strategy = engine.resolve_strategy(strategy, plan, n_maps, V.shape[1])
     if group is not None:
         strategy = (strategy, group)
@@ -598,8 +592,7 @@ def sweep_fit(
     statics = dict(
         n_iterations=int(n_iterations), n_atoms=n_atoms, n_maps=n_maps,
         plan=plan, strategy=strategy, update_H=True, update_W=True,
-        use_inhibition=use_inh, use_cross=use_cross,
-        use_pallas=False, use_pallas_gw=False, beta=float(beta_loss))
+        use_inhibition=use_inh, use_cross=use_cross, beta=float(beta_loss))
     if tol is not None:
         if record_energies:
             raise ValueError('tol= and record_energies are mutually '

@@ -31,10 +31,9 @@ unchanged.  How the engine feeds them (:func:`tnmf_tpu.engine._beta_grad_H`
   computes the factors canonically and prepares ``A`` per iteration
   (:func:`tnmf_tpu.engine._beta_grad_pair`).
 
-On TPU the factors are one fused elementwise pass over V-shaped streams
-(small next to the H-sized streams that bound the iteration; see
-doc/Architecture.md roofline) — XLA fuses the power/divide into the
-downstream convolution's input.
+The factors are one fused elementwise pass over V-shaped streams (small
+next to the H-sized streams of the iteration) — XLA fuses the power/divide
+into the downstream convolution's input.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Direct-convolution strategy for the conv-NMF operators.
 
 Maps each of the three operators onto a single ``lax.conv_general_dilated``
-call, which XLA lowers onto the TPU MXU (the systolic array).  This is the
-TPU-native analogue of the reference's strided-view einsum backend
+call, which XLA hands to cuDNN on a GPU.  This is the analogue of the
+reference's strided-view einsum backend
 (``/root/reference/tnmf/backends/NumPy.py``) — the sliding-window ("im2col")
 structure that the reference builds manually with
 ``np.lib.stride_tricks.as_strided`` is exactly what the hardware convolution
@@ -40,7 +40,8 @@ from .modes import ConvPlan
 _SPATIAL = 'DHW'  # up to 3 explicit spatial letters; rank > 3 uses generic dims
 
 # one-hot placement contractions are pure gathers; HIGHEST keeps the
-# gathered weights exact under TPU's bf16-pass matmul default
+# gathered weights exact under a reduced-precision matmul default (TF32
+# on a GPU)
 _EXACT = lax.Precision.HIGHEST
 
 
@@ -104,7 +105,7 @@ FACTORS_IN_PREPARED = True
 
 
 def _conv(lhs, rhs, dn, preferred, precision=None, strides=None):
-    # sub-float32 storage (bfloat16) still accumulates in float32 on the MXU
+    # sub-float32 storage (bfloat16) still accumulates in float32
     if jnp.dtype(preferred).itemsize < 4:
         preferred = jnp.float32
     return lax.conv_general_dilated(
@@ -120,14 +121,16 @@ def _conv(lhs, rhs, dn, preferred, precision=None, strides=None):
 # ---------------------------------------------------------------------------
 # space-to-depth output blocking
 #
-# The MXU processes 128-wide output-channel tiles, so correlations with few
-# output channels (e.g. the reconstruction: C = 1-3 image channels) run at a
-# few percent utilization.  Blocking k adjacent output positions per axis
-# into the channel dimension — an expanded kernel holding k shifted copies
-# of the original, applied with stride k, followed by a pixel-unshuffle —
-# raises the channel count k-fold at an FLOP inflation of only
-# (A + k - 1)/A per axis.  Measured on v5e: 4.6x faster for the C=1
-# reconstruction conv at k=(4,4).
+# Correlations with few output channels (e.g. the reconstruction: C = 1-3
+# image channels) leave the matrix units mostly idle.  Blocking k adjacent
+# output positions per axis into the channel dimension — an expanded
+# kernel holding k shifted copies of the original, applied with stride k,
+# followed by a pixel-unshuffle — raises the channel count k-fold at an
+# FLOP inflation of only (A + k - 1)/A per axis.  Measured on an NVIDIA
+# H100 80GB HBM3 (400 W) at the flagship 64x1x256x256 / 16 atoms 9x9
+# (benchmarks/lowering.py): the reconstruction takes 0.76 ms blocked vs
+# 1.92 ms unblocked (f32; bf16 0.71 vs 2.60), and the whole conv MU
+# iteration 5.21 vs 7.24 ms (f32; bf16 5.39 vs 9.38).
 # ---------------------------------------------------------------------------
 
 # skip blocking when the cached one-hot placement tensor would exceed this
@@ -140,11 +143,9 @@ def _block_factors(out_shape, n_out_channels, atom_shape, target=64):
     """Per-axis blocking factors: grow the effective channel count toward
     ``target`` with small factors that divide the output extent.
 
-    target=64 with per-axis factors up to 8 measured best on v5e across the
-    fixture and large-batch configs (benchmark sweep in the commit log).
-    With >= 16 native output channels the MXU already has enough live
-    columns and any blocking only inflates FLOPs — measured 44% slower at
-    (64, 16ch, 248x248) with k=(4,1) vs none — so blocking is skipped."""
+    With >= 16 native output channels blocking is skipped: the channel
+    count already feeds the matrix units and blocking only inflates FLOPs
+    (that cut-off is not re-measured on a GPU)."""
     q = max(int(n_out_channels), 1)
     if q >= 16:
         return (1,) * len(out_shape)
@@ -188,15 +189,14 @@ def _expand_kernel(K, ks):
     Built as ONE einsum against a constant one-hot placement tensor: the
     expansion is rebuilt every MU iteration (it depends on W), and the
     previous ``prod(ks)`` dynamic-update-slice formulation paid a fixed
-    per-op cost that dominated small-problem iterations (~10 us x up to 64
-    ops per conv on v5e)."""
+    per-op cost that dominated small-problem iterations (up to 64 ops per
+    conv)."""
     Q, F = K.shape[:2]
     A = K.shape[2:]
     P, eshape = _placement(ks, A)
     # the placement contraction is a pure gather (one-hot x weight): force
-    # HIGHEST so TPU's default bf16 matmul passes cannot round the kernel
-    # weights themselves (measured 6e-4 relative error leaking into
-    # precision='highest' fits before this)
+    # HIGHEST so a reduced-precision default (TF32 on a GPU) cannot round
+    # the kernel weights themselves
     Ke = jnp.einsum('qfa,jea->qjfe', K.reshape(Q, F, -1),
                     jnp.asarray(P, K.dtype), precision=_EXACT)
     return Ke.reshape((Q * math.prod(ks), F) + eshape)
@@ -230,7 +230,7 @@ def _corr_blocked(Xp, K, dn, preferred, precision, out_shape):
 
 def reconstruct(W: jnp.ndarray, H: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
     """R[n,c,*S] = sum_m (H[n,m] * W[m,c]) — the model reconstruction as one
-    MXU convolution (reference role: ``NumPy_FFT.py:90``)."""
+    convolution (reference role: ``NumPy_FFT.py:90``)."""
     sp = _dim_letters(plan.ndim)
     dn = ('NC' + sp, 'OI' + sp, 'NC' + sp)
     Hp = _extend_H(H, plan)
@@ -267,8 +267,7 @@ def grad_H_pair_prepared(Ap: jnp.ndarray, Bp: jnp.ndarray, W: jnp.ndarray,
                          plan: ConvPlan) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(neg, pos) H-gradient correlations of two already-prepared streams.
     They run as ONE convolution with the streams stacked along the batch
-    axis: one bigger MXU kernel instead of two half-occupancy ones
-    (measured 20-35% faster per MU iteration on v5e)."""
+    axis: one bigger kernel launch instead of two half-occupancy ones."""
     G2 = corr_H(jnp.concatenate([Ap, Bp], axis=0), W, plan)
     n = Ap.shape[0]
     return G2[:n], G2[n:]

@@ -3,12 +3,12 @@
 Applies when ``prod(plan.transform_shape) == 1`` — i.e. reconstruction
 mode ``'full'`` with ``atom_shape == sample_shape``: shift invariance
 degenerates to classic Lee–Seung NMF, ``V[n,c,*S] ~ sum_m H[n,m] *
-W[m,c,*S]``.  Every operator then collapses to a single MXU matmul over
+W[m,c,*S]``.  Every operator then collapses to a single matmul over
 the flattened ``(c, *S)`` feature axis — no convolution, no FFT, no
 extension padding, no one-hot kernels.  The conv strategy handles this
 case correctly but lowers it as a full-sample-sized convolution kernel;
 the matmul formulation is the speed-of-light program for these shapes
-(and is what sklearn's ``NMF(solver='mu')`` computes, at TPU speed —
+(and is what sklearn's ``NMF(solver='mu')`` computes —
 cross-checked in ``tests/test_dot_strategy.py``).
 
 Same functional contract as :mod:`tnmf_tpu.ops.conv` /
@@ -33,7 +33,7 @@ from .modes import ConvPlan
 
 
 def _dot(a, b, preferred, precision):
-    # sub-float32 storage (bfloat16) still accumulates in float32 on the MXU
+    # sub-float32 storage (bfloat16) still accumulates in float32
     if jnp.dtype(preferred).itemsize < 4:
         preferred = jnp.float32
     return jnp.matmul(a, b, precision=precision,

@@ -31,201 +31,34 @@ minibatch slices re-use the same code.
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
-from jax import lax
 
 from .modes import ConvPlan
-
-
-# ---------------------------------------------------------------------------
-# matmul-DFT transforms (TPU)
-#
-# XLA's TPU FFT lowering is extremely slow (measured 98 ms for ONE fft-path
-# reconstruction at the 64x256x256 scale — dozens of times the conv path).
-# On TPU, transforms therefore run as DFT matrix contractions instead:
-# more FLOPs than an FFT, but executed on the MXU at ~2 orders of magnitude
-# higher throughput.  Measured on v5e: a full fft-strategy MU iteration at
-# 64x256x256 drops to 135 ms (the XLA-FFT route spent 98 ms on reconstruct
-# alone).  Axes up to 4096 use a single dense contraction; longer axes a
-# two-stage Cooley-Tukey split (see _full_dft_axis), so there is no length
-# cliff; only axes with no factorization into two <=4096 factors (e.g. a
-# prime circular period > 4096) fall back to jnp.fft.  CPU keeps jnp.fft
-# (exact, f64-capable — the oracle-parity and golden tests run there).
-#
-# Precision: DFT matmuls default to bf16x3 passes (Precision.HIGH,
-# ~8e-5 roundtrip error — measured) rather than the engine-wide bf16
-# default (2.7e-2 roundtrip, too lossy for spectral transforms); an
-# explicit plan precision overrides ('highest' -> 3e-6, 'default' ->
-# single-pass bf16 speed).
-# ---------------------------------------------------------------------------
-
-_DFT_MAX_LEN = 4096   # largest single-stage D matrix: 4096 x 2049 c64 = 67 MB
-# beyond _DFT_MAX_LEN a two-stage Cooley-Tukey split (two MXU contractions
-# plus a twiddle multiply) keeps arbitrary fast lengths on the MXU; the cap
-# below only bounds the split search (L1*L2 with both factors <= 4096)
-_DFT_MAX_TOTAL = _DFT_MAX_LEN * _DFT_MAX_LEN
-
-
-def _use_matmul_dft(plan: ConvPlan) -> bool:
-    try:
-        return (jax.devices()[0].platform == 'tpu'
-                and max(plan.fft_shape) <= _DFT_MAX_TOTAL
-                and all(_split_len(L) is not None for L in plan.fft_shape))
-    except Exception:  # pragma: no cover - uninitialized backend
-        return False
-
-
-def _split_len(L: int):
-    """Factor ``L = L1 * L2`` with both factors <= ``_DFT_MAX_LEN``, as
-    close to ``sqrt(L)`` as possible.  Returns None when no such split
-    exists (never for the 5-smooth / pow2 lengths of
-    :func:`tnmf_tpu.ops.modes.fast_fft_len`).  ``L <= _DFT_MAX_LEN`` needs
-    no split and returns ``(L, 1)``."""
-    if L <= _DFT_MAX_LEN:
-        return (L, 1)
-    for d in range(int(math.isqrt(L)), 1, -1):
-        if L % d == 0 and L // d <= _DFT_MAX_LEN:
-            return (L // d, d)
-    return None
-
-
-def _dft_precision(plan: ConvPlan):
-    # The spectral roundtrip amplifies multiply error, so the DFT matmuls are
-    # floored at Precision.HIGH (bf16x3 passes ~ full f32 products, ~8e-5
-    # roundtrip) even under an engine-wide 'default' precision — a single
-    # bf16 pass here would cost ~2.7e-2 roundtrip error, a far larger cliff
-    # than 'default' causes anywhere else.  'highest' still upgrades (3e-6).
-    if plan.precision == 'highest':
-        return lax.Precision.HIGHEST
-    return lax.Precision.HIGH
-
-
-def _angles(n_out: int, n_in: int, period: int, rdtype) -> jnp.ndarray:
-    """(n_out, n_in) angles 2*pi*k*n/period, reduced mod period in exact
-    integer arithmetic first (f32 cos/sin of ~1e8 radians would be pure
-    noise)."""
-    k = jnp.arange(n_out, dtype=jnp.int32)[:, None]
-    n = jnp.arange(n_in, dtype=jnp.int32)[None, :]
-    red = (k * n) % period
-    return red.astype(rdtype) * jnp.asarray(2.0 * jnp.pi / period, rdtype)
-
-
-def _contract_axis(x, M, axis, precision):
-    """Contract ``M[k, u]`` against axis ``axis`` of ``x``, output index k
-    in place of u."""
-    ins = list('abcdefgh'[:x.ndim])
-    ins[axis] = 'u'
-    outs = list(ins)
-    outs[axis] = 'k'
-    return jnp.einsum(f"{''.join(ins)},ku->{''.join(outs)}", x, M,
-                      precision=precision)
-
-
-def _dft_mat(n_out: int, n_in: int, period: int, sign: float, rdtype) -> jnp.ndarray:
-    """(n_out, n_in) DFT matrix e^{sign * 2 pi i k n / period}."""
-    ang = _angles(n_out, n_in, period, rdtype)
-    return jax.lax.complex(jnp.cos(ang), sign * jnp.sin(ang))
-
-
-def _full_dft_axis(x: jnp.ndarray, axis: int, L: int, sign: float, rdtype, prec) -> jnp.ndarray:
-    """Full (length-L complex) DFT along ``axis`` with implicit zero padding.
-
-    ``sign=-1`` is the forward transform, ``+1`` the unnormalized inverse.
-    Lengths above ``_DFT_MAX_LEN`` run as a two-stage Cooley-Tukey split
-    ``L = L1 * L2``: a DFT_L1 contraction, a twiddle multiply, and a DFT_L2
-    contraction — O(L * (L1 + L2)) MXU work instead of O(L^2), which removes
-    the former >4096 performance cliff (round-2 verdict) where the path fell
-    back to XLA's TPU FFT (measured ~25x slower than MXU contractions)."""
-    L1, L2 = _split_len(L)
-    if L2 == 1:
-        return _contract_axis(x, _dft_mat(L, x.shape[axis], L, sign, rdtype), axis, prec)
-    n_in = x.shape[axis]
-    if n_in < L:
-        pad = [(0, 0)] * x.ndim
-        pad[axis] = (0, L - n_in)
-        x = jnp.pad(x, pad)
-    # n = L2*n1 + n2, k = k1 + L1*k2:
-    #   X[k1 + L1 k2] = sum_n2 e^{s 2pi i k1 n2 / L} e^{s 2pi i k2 n2 / L2}
-    #                   * sum_n1 x[L2 n1 + n2] e^{s 2pi i k1 n1 / L1}
-    x = x.reshape(x.shape[:axis] + (L1, L2) + x.shape[axis + 1:])
-    x = _contract_axis(x, _dft_mat(L1, L1, L1, sign, rdtype), axis, prec)
-    tshape = [1] * x.ndim
-    tshape[axis], tshape[axis + 1] = L1, L2
-    x = x * _dft_mat(L1, L2, L, sign, rdtype).reshape(tshape)
-    x = _contract_axis(x, _dft_mat(L2, L2, L2, sign, rdtype), axis + 1, prec)
-    # (k1, k2) -> k = k1 + L1*k2: k2 becomes the outer split dim
-    x = jnp.moveaxis(x, axis + 1, axis)
-    return x.reshape(x.shape[:axis] + (L,) + x.shape[axis + 2:])
-
-
-def _dft_rfftn(x: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
-    rdt = x.dtype
-    prec = _dft_precision(plan)
-    axes = plan.shift_axes
-    for axis, L in zip(axes, plan.fft_shape):
-        last = axis == axes[-1]
-        if L <= _DFT_MAX_LEN:
-            n_out = L // 2 + 1 if last else L
-            x = _contract_axis(x, _dft_mat(n_out, x.shape[axis], L, -1.0, rdt), axis, prec)
-        else:
-            x = _full_dft_axis(x, axis, L, -1.0, rdt, prec)
-            if last:  # keep only the non-negative half spectrum
-                idx = [slice(None)] * x.ndim
-                idx[axis] = slice(0, L // 2 + 1)
-                x = x[tuple(idx)]
-    return x
-
-
-def _dft_irfftn(x: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
-    rdt = jnp.float32 if x.dtype == jnp.complex64 else jnp.float64
-    prec = _dft_precision(plan)
-    axes = plan.shift_axes
-    for axis, L in zip(axes[:-1], plan.fft_shape[:-1]):
-        if L <= _DFT_MAX_LEN:
-            M = _dft_mat(L, x.shape[axis], L, 1.0, rdt) / L
-            x = _contract_axis(x, M, axis, prec)
-        else:
-            x = _full_dft_axis(x, axis, L, 1.0, rdt, prec) / L
-    axis = axes[-1]
-    L = plan.fft_shape[-1]
-    K = x.shape[axis]
-    if L > _DFT_MAX_LEN:
-        # rebuild the full spectrum from conjugate symmetry, run the
-        # two-stage inverse, keep the real part
-        idx = [slice(None)] * x.ndim
-        idx[axis] = slice(1, L - K + 1)
-        upper = jnp.flip(jnp.conj(x[tuple(idx)]), axis=axis)
-        full = jnp.concatenate([x, upper], axis=axis)
-        return jnp.real(_full_dft_axis(full, axis, L, 1.0, rdt, prec)) / L
-    # last axis: half spectrum -> real output.  x[n] = (1/L) sum_k w_k *
-    # Re(X[k] e^{2 pi i k n / L}), w = 1 at k=0 (and k=L/2 for even L), 2
-    # in between (the conjugate-symmetric upper half folded in).
-    ang = _angles(L, K, L, rdt)  # (L, K) with [n, k] = 2 pi k n / L
-    w = jnp.full((K,), 2.0, rdt).at[0].set(1.0)
-    if L % 2 == 0 and K == L // 2 + 1:
-        w = w.at[K - 1].set(1.0)
-    C = jnp.cos(ang) * (w / L)
-    S = jnp.sin(ang) * (-w / L)
-    return (_contract_axis(jnp.real(x), C, axis, prec)
-            + _contract_axis(jnp.imag(x), S, axis, prec))
 
 
 def _rfftn(x: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
     if jnp.dtype(x.dtype).itemsize < 4:
         x = x.astype(jnp.float32)  # FFT needs >= single precision
-    if _use_matmul_dft(plan):
-        return _dft_rfftn(x, plan)
-    return jnp.fft.rfftn(x, s=plan.fft_shape, axes=plan.shift_axes)
+    return _leading_flat(
+        lambda y: jnp.fft.rfftn(y, s=plan.fft_shape, axes=plan.shift_axes), x)
 
 
 def _irfftn(x: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
-    if _use_matmul_dft(plan):
-        return _dft_irfftn(x, plan)
-    return jnp.fft.irfftn(x, s=plan.fft_shape, axes=plan.shift_axes)
+    return _leading_flat(
+        lambda y: jnp.fft.irfftn(y, s=plan.fft_shape, axes=plan.shift_axes), x)
+
+
+def _leading_flat(f, x: jnp.ndarray) -> jnp.ndarray:
+    """``f`` applied with the two leading (batch, channel) axes merged into
+    one.  The reshape pins the transform's operand to the default row-major
+    layout: under a 'samples+atoms' mesh the partitioner otherwise hands
+    XLA:CPU's FFT an operand whose layout it rejects (a RET_CHECK in its
+    FFT thunk).  A row-major reshape is free where the layout already is."""
+    lead = x.shape[:2]
+    y = f(x.reshape((lead[0] * lead[1], 1) + x.shape[2:]))
+    return y.reshape(lead + y.shape[2:])
 
 
 def _crop(x: jnp.ndarray, start: Tuple[int, ...], size: Tuple[int, ...]) -> jnp.ndarray:

@@ -5,7 +5,7 @@ tensor H with small symmetric kernels ``1 - (i/(r+1))**2`` along each shift
 axis, zero-padded at the boundary.  Mirrors the semantics of the reference's
 ``convolve_multi_1d`` (``/root/reference/tnmf/backends/_NumPyBackend.py:56-64``,
 kernel construction at ``TransformInvariantNMF.py:163``), implemented here as
-blocked banded-matrix contractions that run on the MXU and fuse into the
+blocked banded-matrix contractions (matmuls) that fuse into the
 surrounding update step (see :func:`_band_convolve_1d`).
 """
 
@@ -63,8 +63,8 @@ def _band_matrix(kernel: jnp.ndarray, n_out: int, n_in: int, shift: int) -> jnp.
 
     Built gather-free (one fused masked-add per tap): the construction sits
     inside the jitted fit loop, where XLA does not hoist it out of the
-    ``while``-loop body, and a ``kernel[indices]`` gather runs on the TPU
-    scalar unit — measured 11x slower per MU iteration on small problems.
+    ``while``-loop body, where a ``kernel[indices]`` gather would be paid
+    every iteration.
     """
     x = jnp.arange(n_out)[:, None]
     u = jnp.arange(n_in)[None, :]
@@ -136,18 +136,16 @@ def convolve_multi_1d(
     """Sequential zero-padded 1-D convolutions along ``axes``.
 
     The kernels here are symmetric so convolution equals correlation; the
-    separable convolution runs as banded-matrix MXU contractions.
+    separable convolution runs as banded-matrix contractions.
 
-    Rationale (TPU): a single-channel ``lax.conv`` keeps the MXU idle and —
-    for non-minor axes — forces a relayout of the whole tensor, measured 10x
-    slower than HBM-bound at the large-batch scale.  Contracting against
-    small banded matrices (``B[x, u] = kernel[u - x + r]``; boundary zeros
-    are encoded by the band running off the matrix edge) runs on the MXU at
-    a FLOP inflation of only (axis_len + 2r)/taps — capped by windowing for
-    long axes (:func:`_band_convolve_blocked`) — with no transposes, and all
-    short axes fold into ONE einsum so XLA owns the contraction order and
-    layouts end to end.  Measured 6x faster than the conv formulation at
-    (64, 16, 248, 248), taps (17, 17) on a v5e chip.
+    Rationale: a single-channel ``lax.conv`` along a non-minor axis forces a
+    relayout of the whole tensor.  Contracting against small banded
+    matrices (``B[x, u] = kernel[u - x + r]``; boundary zeros are encoded by
+    the band running off the matrix edge) costs a FLOP inflation of only
+    (axis_len + 2r)/taps — capped by windowing for long axes
+    (:func:`_band_convolve_blocked`) — with no transposes, and all short
+    axes fold into ONE einsum so XLA owns the contraction order and layouts
+    end to end.
     """
     assert len(kernels) == len(axes)
     out = arr

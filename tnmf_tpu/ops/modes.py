@@ -62,8 +62,8 @@ def fast_fft_len(n: int, policy: str = '5-smooth') -> int:
     """Smallest FFT-friendly length >= n.
 
     ``'5-smooth'`` returns the smallest integer >= n whose prime factors are
-    all in {2, 3, 5} (good on CPU and acceptable on TPU). ``'pow2'`` returns
-    the next power of two (preferred by the TPU FFT for large sizes).
+    all in {2, 3, 5} (fast in pocketfft and cuFFT alike). ``'pow2'`` returns
+    the next power of two.
     """
     if n <= 1:
         return 1
@@ -124,11 +124,11 @@ class ConvPlan:
     any leading batch size (jit re-specializes on array shapes), which is what
     makes minibatch slicing cheap.
 
-    ``precision`` controls the multiply precision of the contraction units
-    (TPU MXU): None uses the backend default (bfloat16 multiplies with f32
-    accumulation on TPU — fastest), 'highest' forces full input-dtype
-    multiplies (3-pass f32 on TPU) for workloads that need tighter
-    float32 trajectories.
+    ``precision`` controls the multiply precision of convolutions and
+    matmuls: None uses the backend default (on a GPU, float32 products in
+    TF32 on the tensor cores: 10-bit mantissa, float32 accumulation —
+    fastest), 'highest' forces full float32 products for workloads that
+    need tighter float32 trajectories.
     """
     mode: str
     sample_shape: Tuple[int, ...]

@@ -1,25 +1,20 @@
-"""Phase-decomposed direct-convolution strategy (TPU).
+"""Phase-decomposed direct-convolution strategy.
 
-The plain conv strategy (:mod:`tnmf_tpu.ops.conv`) is MXU-starved for
-channel-poor problems: at the flagship 64x256x256 / 16-atom / 1-channel
-scale its three convolutions run with 1-16 live lanes out of 128 (round-2
-verdict: ~5-7% MFU), XLA picks batch-in-lanes layouts, and the MU ratio
-pays lane-sliced reads.  This module re-lowers the whole MU iteration in a
-**phase-blocked domain**: the activation tensor H is carried as
+The plain conv strategy (:mod:`tnmf_tpu.ops.conv`) starves the matrix
+units on channel-poor problems: at the flagship 64x256x256 / 16-atom /
+1-channel scale its three convolutions carry 1-16 channels.  This module
+re-lowers the whole MU iteration in a **phase-blocked domain**: the
+activation tensor H is carried as
 
     Hph[n, Y1..Yk, (m, p1..pk)] = H[n, m, r1*Y1 + p1, ..., rk*Yk + pk]
 
 with per-axis phase factors ``r`` — a space-to-depth view of the shift
 axes, carried **channels-last** (phased channels in the minormost axis).
-Channels-last is deliberate: the phased channel count ``M*prod(r)`` is the
-one axis sized in 128-lane multiples (256 at the flagship config), so the
-default row-major layout fills the vector lanes for the elementwise MU
-ratio and — crucially — the Pallas fused-update kernels
-(:mod:`tnmf_tpu.experimental.pallas_phased`) see full lanes at their boundary,
-where Pallas mandates the default layout.  (A channels-second carry makes
-the minormost axis the ragged spatial extent — 66 of 128 lanes at the
-flagship scale — and forces boundary relayouts around every Pallas call.)
-Every operator is a convolution whose channel counts are multiplied by
+Channels-last is deliberate: the phased channel count ``M*prod(r)`` (256
+at the flagship config) is the widest, most regular axis, so the default
+row-major layout keeps the elementwise MU ratio's accesses contiguous
+(a channels-second carry makes the minormost axis the ragged spatial
+extent).  Every operator is a convolution whose channel counts are multiplied by
 the ``prod(r)`` phase count on *both* sides:
 
 * ``grad_H_pair`` — one conv of the phased extended data (``C*prod(r)``
@@ -32,18 +27,19 @@ the ``prod(r)`` phase count on *both* sides:
   pixel unshuffle.
 * ``grad_W_pair`` — one conv contracting samples (dn ``('CN','IO','NC')``)
   between the channel-stacked phased data and phased H; because phased H
-  has ``M*prod(r)`` "output" channels the systolic array runs with full
-  columns (vs M in the plain lowering), and a tiny one-hot einsum
+  has ``M*prod(r)`` "output" channels the contraction runs ``prod(r)``
+  times wider than in the plain lowering (M), and a tiny one-hot einsum
   reassembles the (M, C, *atom) gradient from the phase terms.
 * lateral inhibition — per-axis one-hot phase-space convs in the same
   layout (:func:`inhibition_positive_term_phased`).
 
-Measured on one v5e chip at the flagship config (64x256x256, 16 atoms 9x9,
-C=1): 15.05 -> 3.1 ms per full MU iteration f32, 13 -> 1.75-1.9 ms bf16
-(the channels-last carry keeps the phased channels minormost) — the
-round-2 profile's three bottlenecks (grad_W conv 6.6 ms, lane-sliced MU
-ratio 3.2 ms, grad_H conv 2.7 ms) all collapse.  Numerically the operators
-match the oracle/conv paths to f64 roundoff (tests/test_phased.py).
+Measured on an NVIDIA H100 80GB HBM3 (400 W) at the flagship config
+(64x256x256, 16 atoms 9x9, C=1; ``benchmarks/lowering.py``): 5.21 ->
+2.41 ms per full MU iteration in f32 and 5.39 -> 1.92 ms in bf16 against
+the plain conv strategy, which is why the lowering policy
+(:func:`tnmf_tpu.engine.prefers_phased`) selects it on a GPU.  Numerically
+the operators match the oracle/conv paths to f64 roundoff
+(tests/test_phased.py).
 
 Generality: all four reconstruction modes, 1-3 shift dimensions (the lax
 conv limit).  Arbitrary transform sizes are handled by **absorbing zero
@@ -98,15 +94,10 @@ from jax import lax
 from . import conv as conv_ops
 from .modes import ConvPlan
 
-# phase count cap: channel multiplication saturates once ~128 lanes are
-# live; beyond it the one-hot kernels only inflate FLOPs
+# phase count cap: beyond it the one-hot kernels only inflate FLOPs
 _MAX_PHASES = 16
 # default per-axis reconstruction output blocking by rank (targets ~64
-# output channels for C=1).  A stride-1 alternative (s = r, half the
-# one-hot FLOP inflation) was swept on v5e and measured a wash in the real
-# fused fit loop at every scale (within run noise at 64x256x256 and
-# 128x128; slightly worse at the 76x102 fixture), so the simple fixed
-# blocking stays.  These factors also set the valid-mode padding
+# output channels for C=1).  These factors also set the valid-mode padding
 # congruence in :func:`geometry`; the reconstruction conv itself may
 # *locally* double the minormost block for channel-poor data
 # (:func:`_rec_block`) without changing any carried shape.
@@ -118,19 +109,11 @@ def _rec_block(g, n_channels: int, itemsize: int = 2,
     """Effective reconstruction output blocking for ``n_channels`` data.
 
     The rec conv's output channel count is ``C * prod(s)``; at the base 2-D
-    blocking and C=1 that is 64 — half of the 128 vector lanes.  For
-    narrow dtypes (bf16), doubling the minormost block fills the lanes
-    and wins despite ~1.5x one-hot FLOP inflation: measured side-by-side
-    in one process at the v5e flagship (64x256x256/16x9x9/C=1 full MU
-    iteration), bf16 1.99-2.03 -> 1.83-1.88 ms (~8%).  For f32 the same
-    doubling measured a consistent ~3% *loss* (3.30-3.38 -> 3.44 ms): the
-    wider iteration's byte budget already hides the half-filled lanes,
-    so only the extra FLOPs and tail padding remain — f32 keeps the base
-    blocking.  (An earlier sweep that made the doubled block global —
-    changing ``t_pad`` congruence, i.e. padding the carried H — measured
-    an f32 win, but that variant taxes every H stream ~3% for all C,
-    which mu_H's stream-roofline cost cannot afford.)  C >= 2 already
-    fills the lanes, so the base blocking stays.  Purely local to the
+    blocking and C=1 that is 64.  For narrow dtypes (bf16) and one
+    channel the minormost block is doubled (128 output channels) at ~1.5x
+    one-hot FLOP inflation; float32 and C >= 2 keep the base blocking.
+    Which way this choice goes on a GPU is not measured yet (the H100
+    flagship figures in the module docstring include it).  Purely local to the
     reconstruction: ``t_pad`` keeps the base-``s`` congruence and
     :func:`reconstruct` tops up any non-congruent strided grid with
     absorbing conv padding.
@@ -209,7 +192,7 @@ def applicable(plan: ConvPlan, n_channels: int, n_atoms: int) -> bool:
 
     The phase trick pays off when channels are scarce (it multiplies both
     conv operands' channel counts); with >= 16 native channels the plain
-    conv lowering already fills the MXU (same threshold as the
+    conv lowering already feeds the matrix units (same threshold as the
     space-to-depth output blocking in :mod:`tnmf_tpu.ops.conv`).
     """
     g = geometry(plan)
@@ -342,7 +325,7 @@ def _grad_kernel(W: jnp.ndarray, g) -> jnp.ndarray:
     A, r = g['a'], g['r']
     P, K = _grad_placement(A, r)
     # one-hot placement = pure gather; HIGHEST keeps the dictionary weights
-    # exact under TPU's bf16-pass matmul default (conv_ops._EXACT rationale)
+    # exact under a TF32 matmul default (conv_ops._EXACT rationale)
     Kk = jnp.einsum('mca,pqka->mpcqk', W.reshape(M, C, -1),
                     jnp.asarray(P, W.dtype), precision=conv_ops._EXACT)
     pp = math.prod(r)
@@ -381,9 +364,9 @@ def _dn(nd: int, kind: str):
 
 def _conv(lhs, rhs, dn, preferred, precision, strides=None, keep_low=False,
           padding=None):
-    # sub-f32 storage still accumulates in f32 on the MXU; keep_low rounds
-    # the *output* to the storage dtype (used for the H-gradient pair in
-    # bf16 mode, halving the dominant HBM stream of the iteration — the MU
+    # sub-f32 storage still accumulates in f32; keep_low rounds the
+    # *output* to the storage dtype (used for the H-gradient pair in bf16
+    # mode, halving the dominant memory stream of the iteration — the MU
     # ratio is robust to bf16 gradient statistics, tests/test_bfloat16.py)
     if not keep_low and jnp.dtype(preferred).itemsize < 4:
         preferred = jnp.float32
@@ -523,9 +506,8 @@ def grad_H_pair_prepared(As: jnp.ndarray, Bs: jnp.ndarray, W: jnp.ndarray,
     plain conv strategy's trick) forces the consumer to slice its output
     across the batch dim, which blocks XLA's conv-output fusion and
     materializes the stacked H-sized gradient pair (~500 MB at the
-    flagship scale) to HBM.  Kept separate, each conv fuses into the
-    downstream MU ratio — measured 2.64 -> 1.72 ms for grad pair + ratio
-    on v5e (the ratio alone costs 1.62 ms: the convs become nearly free).
+    flagship scale) to device memory.  Kept separate, each conv can fuse
+    into the downstream MU ratio.
     """
     return corr_H(As, W, plan), corr_H(Bs, W, plan)
 
@@ -550,9 +532,7 @@ def grad_H_pair(Vs: jnp.ndarray, R: jnp.ndarray, W: jnp.ndarray,
 # *conv input padding* of the downstream gradient conv: (a-1)/r zero
 # blocks on each side.  The R stream then materializes exactly once (the
 # rec conv's write) and is read exactly once (the grad conv) — the
-# minimum any schedule can do.  (The s = r rec conv itself was measured a
-# wash vs the lane-blocked default in the unfused loop, so the round-trip
-# savings are pure gain.)
+# minimum any schedule can do.
 #
 # Exactness gate: ``t_pad == t``.  With absorbing transform padding the
 # raw output's overhang (canonical positions >= S) is computed from REAL
@@ -561,12 +541,11 @@ def grad_H_pair(Vs: jnp.ndarray, R: jnp.ndarray, W: jnp.ndarray,
 # ---------------------------------------------------------------------------
 
 def fused_rec_supported(plan: ConvPlan, dtype=jnp.float32) -> bool:
-    """Measured on v5e at the 64x256x256/16x9x9/C=1 flagship: f32 FULL
-    iteration 3.38 -> 3.02 ms (66 -> 76% of the HBM roofline) — the byte
-    savings dominate.  bf16 measured the other way (1.85 -> 2.21 ms, 69 ->
-    51%): the narrow iteration is lane-occupancy-bound, and the s = r rec
-    conv drives only C*pp of 128 lanes while giving up the doubled
-    lane-filling blocking — so narrow dtypes keep the canonical path.
+    """Whether the fused path runs: float32 only.  It saves R-sized memory
+    passes, but its ``s = r`` reconstruction conv carries only ``C*pp``
+    output channels and gives up the doubled blocking of
+    :func:`_rec_block`, so narrow dtypes keep the canonical path.  The
+    split by dtype is not re-measured on a GPU.
 
     Geometry: mode 'full' is unconditionally exact (positions past the
     sample read only absorbing H zeros, so the raw overhang already *is*
@@ -735,11 +714,10 @@ def inhibition_positive_term_phased(
     zero padding reproduces the reference's zero-padded boundary exactly).
 
     The per-axis convs use a dense ``(M*pp, M*pp, taps)`` kernel that is
-    block-diagonal over atoms — only 1/M of its FLOPs are useful, but the
-    measured alternative (atoms merged into the conv batch dim, kernel
-    ``(pp, pp, taps)``, 16x fewer FLOPs) runs ~2x *slower* on v5e at the
-    flagship scale: a 16-lane conv is MXU-starved no matter how large its
-    batch.  Channel-rich-but-inflated wins again.
+    block-diagonal over atoms — only 1/M of its FLOPs are useful.  The
+    alternative (atoms merged into the conv batch dim, kernel
+    ``(pp, pp, taps)``, 16x fewer FLOPs) feeds the matrix units only
+    ``pp`` channels; it is not measured on a GPU.
     """
     g = geometry(plan)
     r = g['r']
@@ -778,7 +756,7 @@ def corr_W(Xs: jnp.ndarray, Hph: jnp.ndarray, plan: ConvPlan) -> jnp.ndarray:
     P4 = jnp.asarray(P.transpose(1, 0, 2, 3), out.dtype)
     o = out.reshape((C, pp, M, pp, math.prod(K)))
     # one-hot scatter-add of the phase terms: exact products (x1.0) keep
-    # the f32 gradient statistics unrounded under TPU's bf16 default
+    # the f32 gradient statistics unrounded under a TF32 default
     G = jnp.einsum('cqmpk,qpka->cma', o, P4,
                    precision=conv_ops._EXACT).reshape((C, M) + A)
     return jnp.swapaxes(G, 0, 1)

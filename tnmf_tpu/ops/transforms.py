@@ -3,7 +3,7 @@
 The reference implements *shift* invariance only and explicitly defers other
 transform types to future work (``/root/reference/tnmf/TransformInvariantNMF.py:65-69``:
 "Currently, only a single transform type [...] shift invariance [...] is
-supported").  This module supplies that extension for the TPU build: a
+supported").  This module supplies that extension for the JAX build: a
 dictionary atom can additionally be matched under mirror flips and/or 90-degree
 rotations, with one activation map per (atom, transform) pair.
 
@@ -30,8 +30,8 @@ nonnegative).  Nonnegativity of the entries also means the reference's
 pull-back term by term, so the Lee-Seung update on the canonical ``W``
 remains a valid multiplicative descent step.
 
-Execution design (TPU)
-----------------------
+Execution design
+----------------
 The transform group composes as a *wrapper* around an existing strategy
 module ('fft' or 'conv'): the engine's static ``strategy`` argument becomes
 the hashable tuple ``(base_strategy, TransformGroup)`` and

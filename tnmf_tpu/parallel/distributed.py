@@ -1,8 +1,8 @@
-"""Multi-host (multi-process) data parallelism over DCN + ICI.
+"""Multi-host (multi-process) data parallelism across processes.
 
 The reference is strictly single-process (SURVEY.md §2.3).  Single-host
 data parallelism lives in :mod:`tnmf_tpu.parallel.sharding`; this module
-extends it across *processes* (e.g. several TPU hosts in a pod slice, or
+extends it across *processes* (e.g. several GPU hosts of a cluster, or
 several CPU processes in tests):
 
 1. every process calls :func:`initialize` (a thin wrapper over
@@ -14,8 +14,8 @@ several CPU processes in tests):
    materializing the full batch,
 4. fits as usual with ``TransformInvariantNMF(mesh=global_mesh,
    init='device')`` — the engine's jitted steps are SPMD, so the W-gradient
-   sample reduction becomes one ``psum`` spanning ICI within each host and
-   DCN across hosts, exactly like the single-host path.
+   sample reduction becomes one ``psum`` spanning the links within each
+   host and the network across hosts, exactly like the single-host path.
 
 Requirements under a process-spanning mesh: ``init='device'`` (W/H are
 created directly in their sharded layout; no host holds global H), no
@@ -47,8 +47,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Connect this process to the JAX distributed runtime.
 
-    On TPU pods with standard orchestration all arguments are discovered
-    automatically (pass nothing).  For manual/CPU setups pass the
+    Under a cluster manager JAX recognises (e.g. SLURM) all arguments are
+    discovered automatically (pass nothing).  Otherwise pass the
     coordinator ``host:port``, the total process count and this process's
     rank, like ``jax.distributed.initialize``.
     """
@@ -62,8 +62,8 @@ def global_mesh():
 
     ``jax.devices()`` returns the global device list once the distributed
     runtime is initialized; device order groups by process, so sample
-    shards are process-contiguous and the W all-reduce rides ICI within a
-    host before crossing DCN."""
+    shards are process-contiguous and the W all-reduce stays within a host
+    before crossing the network."""
     return make_mesh(devices=jax.devices())
 
 

@@ -1,4 +1,4 @@
-"""Sharded execution over a TPU mesh (data / spatial / atom parallelism).
+"""Sharded execution over a device mesh (data / spatial / atom parallelism).
 
 The reference is strictly single-process (SURVEY.md §2.3); this module is the
 new capability that replaces it at scale.  Three shardable axes, composable

@@ -46,6 +46,27 @@ from .utils.validation import require, require_nonneg
 _MAGIC = b'TNMFSRV1'
 
 
+def _jax_export():
+    """``jax.export``, with a FlatBuffers runtime for its (de)serializer.
+
+    JAX lists ``flatbuffers`` as an optional dependency, and some JAX
+    installations lack it; then the copy in :mod:`tnmf_tpu._vendor` is
+    registered under that name before ``jax.export`` first needs it.  The
+    registration is process-wide: any later ``import flatbuffers`` in the
+    same process gets this copy, which has no ``flexbuffers`` module."""
+    try:
+        import flatbuffers  # noqa: F401
+    except ImportError:
+        import sys
+        from ._vendor import flatbuffers
+        sys.modules['flatbuffers'] = flatbuffers
+        for sub in ('builder', 'compat', 'encode', 'number_types', 'packer',
+                    'table', 'util'):
+            sys.modules['flatbuffers.' + sub] = getattr(flatbuffers, sub)
+    from jax import export
+    return export
+
+
 def export_serving(model, *,
                    n_iterations: int = 100,
                    sparsity_H: float = 0.,
@@ -80,7 +101,7 @@ def export_serving(model, *,
     path : str, optional
         Also write the artifact to ``path`` (atomically).
     platforms : sequence of str, optional
-        Lowering platforms (e.g. ``('tpu', 'cpu')``) for a multi-platform
+        Lowering platforms (e.g. ``('cuda', 'cpu')``) for a multi-platform
         artifact; default: the current JAX backend.
     input_dtype : dtype-like, optional
         Input array dtype the artifact accepts (cast to the model's
@@ -111,7 +132,7 @@ def export_serving(model, *,
     """
     import jax
     import jax.numpy as jnp
-    from jax import export as jax_export
+    jax_export = _jax_export()
     from jax import lax
 
     from . import engine
@@ -156,11 +177,9 @@ def export_serving(model, *,
                                tuple(int(s) for s in sample_shape),
                                model.atom_shape, model._fft_policy,
                                precision=model._precision)
-        strategy = model._strategy_request
-        if strategy == 'auto':
-            strategy = engine.choose_strategy(plan, model.n_atoms, W.shape[1])
         strategy = engine.resolve_strategy(
-            strategy, plan, model.n_atoms * model.n_transforms, W.shape[1])
+            model._strategy_request, plan, model.n_atoms * model.n_transforms,
+            W.shape[1])
         if model._group is not None:
             strategy = (strategy, model._group)
     else:
@@ -357,7 +376,7 @@ def _export_serving_multiscale(model, *, n_iterations, sparsity_H,
     optionally plus the summed reconstruction as decoder."""
     import jax
     import jax.numpy as jnp
-    from jax import export as jax_export
+    jax_export = _jax_export()
     from jax import lax
 
     from . import engine
@@ -387,8 +406,11 @@ def _export_serving_multiscale(model, *, n_iterations, sparsity_H,
         plans = tuple(ConvPlan.create(model._mode, sshape, a,
                                       precision=model._precision)
                       for a in model.atom_shapes)
-        strategies = tuple(engine.choose_strategy(p, m, int(Ws[0].shape[1]))
-                           for p, m in zip(plans, model.n_atoms))
+        # same resolution chain as MultiScaleTNMF._initialize
+        strategies = tuple(
+            engine.resolve_strategy('auto', p, m, int(Ws[0].shape[1]),
+                                    allow_dot=False)
+            for p, m in zip(plans, model.n_atoms))
     else:
         plans, strategies = model._plans, model._strategies
     if np.isscalar(sparsity_H):
@@ -541,7 +563,7 @@ class ServingModel:
 def load_serving(src: Union[str, bytes, os.PathLike]) -> ServingModel:
     """Load a serving artifact written by :func:`export_serving` from a
     path or raw bytes."""
-    from jax import export as jax_export
+    jax_export = _jax_export()
 
     if isinstance(src, (str, os.PathLike)):
         with open(src, 'rb') as f:

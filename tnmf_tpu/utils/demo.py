@@ -91,10 +91,9 @@ def st_define_nmf_params(default_params: dict, have_ground_truth: bool = True,
     backend = st.sidebar.selectbox(
         'Backend', ['auto', 'jax_fft', 'jax_conv'], index=0,
         help="Numerical strategy for the convolution operators. 'auto' "
-             "picks by atom/sample geometry (direct MXU convolution for "
-             "small atoms, spectral for large) and upgrades to the "
-             "phase-decomposed TPU lowering where it wins; results are "
-             "identical across backends, so switching is for speed only.")
+             "picks by atom/sample geometry (direct convolution for "
+             "small atoms, spectral for large); results are identical "
+             "across backends, so switching is for speed only.")
     # transform invariances beyond shift (tnmf_tpu.ops.transforms);
     # rotations need square atoms in the last two axes
     transform_options = ['shift', 'shift+flip']

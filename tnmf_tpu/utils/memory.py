@@ -118,10 +118,7 @@ def estimate_fit_memory(model, V_shape: Tuple[int, ...],
         raise ValueError(f"solver must be 'mu' or 'hals', got {solver!r}")
     n_maps = model.n_atoms * model.n_transforms
     # same resolution chain as _initialize_matrices (models/tnmf.py)
-    strategy = model._strategy_request
-    if strategy == 'auto':
-        strategy = engine.choose_strategy(plan, model.n_atoms, c)
-    strategy = engine.resolve_strategy(strategy, plan, n_maps, c)
+    strategy = engine.resolve_strategy(model._strategy_request, plan, n_maps, c)
     if model._group is not None:
         strategy = (strategy, model._group)
 
@@ -222,8 +219,7 @@ def _estimate_multiscale(model, n, c, sample_shape, dt) -> MemoryEstimate:
         # per-scale strategies resolve like the single-scale model,
         # including the phased lowering)
         strategies = tuple(
-            engine.resolve_strategy(engine.choose_strategy(p, m, c), p, m,
-                                    c, allow_dot=False)
+            engine.resolve_strategy('auto', p, m, c, allow_dot=False)
             for p, m in zip(plans, model.n_atoms))
     else:
         from ..models.tnmf import _BACKEND_STRATEGY
